@@ -29,7 +29,7 @@ def main() -> None:
         "--virtual",
         type=int,
         default=0,
-        help="force an N-device virtual CPU mesh (overrides a pinned TPU)",
+        help="force an N-device virtual CPU mesh",
     )
     parser.add_argument(
         "--graph",

@@ -1,6 +1,6 @@
-"""kmerset_tpu — a TPU-native k-mer set engine.
+"""kmerset_tpu — a JAX k-mer set engine for the GPU.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 kkty/kmer-sets-compression (reference layout: lib/core/*.h, src/*.cc):
 
 - 2-bit packed k-mer codec (reference: lib/core/kmer.h)

@@ -8,7 +8,7 @@ checkout silently running 10-50x slower (and, worse, exercising different
 code paths than CI) is a trap.  This module closes it: when the shared
 library is missing or older than its C source, it runs `make -C native
 <target>` once, serialized across processes with an exclusive file lock,
-and stays silent on any failure.
+and logs a warning with make's output when the build fails.
 """
 
 from __future__ import annotations
@@ -28,9 +28,9 @@ def _native_dir() -> str:
 def ensure_built(target: str, sources: Sequence[str]) -> None:
     """Builds `native/<target>` from `sources` if missing/stale.
 
-    Silent best-effort: no toolchain, read-only checkout, concurrent
-    builds, and build errors all degrade to "library unavailable", which
-    every caller already handles.  At most one attempt per process per
+    Best-effort: no toolchain, read-only checkout, concurrent builds, and
+    build errors all degrade to "library unavailable", which every caller
+    already handles; a failed make is logged as a warning.  At most one attempt per process per
     target (the pytest suite and the CLIs spawn many subprocesses; each
     re-checks mtimes cheaply and only the first stale one pays the make).
     """
@@ -67,12 +67,23 @@ def ensure_built(target: str, sources: Sequence[str]) -> None:
             # *running* interpreter — PATH python3 may be a different
             # version, which would build a wrongly-suffixed (or
             # wrongly-headered) extension.
-            subprocess.run(
+            proc = subprocess.run(
                 ["make", "-C", ndir, target, f"PY={sys.executable}"],
-                stdout=subprocess.DEVNULL,
-                stderr=subprocess.DEVNULL,
+                capture_output=True,
+                text=True,
                 timeout=300,
                 check=False,
             )
-    except Exception:  # noqa: BLE001 - the fallback paths are complete
-        pass
+            if proc.returncode != 0:
+                _warn(f"make exited {proc.returncode}: {proc.stderr[-2000:]}", target)
+    except Exception as e:  # noqa: BLE001 - the fallback paths are complete
+        _warn(repr(e), target)
+
+
+def _warn(what: str, target: str) -> None:
+    from .utils.log import get_logger
+
+    get_logger().warning(
+        "native build of %s failed (host paths fall back to numpy): %s",
+        target, what,
+    )

@@ -11,6 +11,7 @@ import argparse
 import sys
 
 from ..core.config import get_config
+from ..ops.backend import enable_compile_cache
 from ..core.kmer_set_set import KmerSetSetReader
 from ..utils import flags as flag_util
 from ..utils.log import enable_debug_logs, init_default_logger
@@ -35,6 +36,7 @@ def main(argv=None) -> None:
         enable_debug_logs()
     flag_util.check_k(args.k)
     flag_util.apply_workers(args)
+    enable_compile_cache()
     cfg = get_config(args.k)
 
     logger.info("loading kmer_set_set_reader")

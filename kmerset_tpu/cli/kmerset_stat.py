@@ -7,6 +7,7 @@ import argparse
 import sys
 
 from ..core.config import get_config
+from ..ops.backend import enable_compile_cache
 from ..core.kmer_set_compact import KmerSetCompact
 from ..utils import flags as flag_util
 from ..utils.log import enable_debug_logs, init_default_logger
@@ -28,6 +29,7 @@ def main(argv=None) -> None:
         enable_debug_logs()
     flag_util.check_k(args.k)
     flag_util.apply_workers(args)
+    enable_compile_cache()
     cfg = get_config(args.k)
 
     with flag_util.trace_context(args):  # --trace captures the hot phase

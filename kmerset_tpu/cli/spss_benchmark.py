@@ -10,6 +10,7 @@ import time
 
 from ..core import spss as spss_mod
 from ..core.config import get_config
+from ..ops.backend import enable_compile_cache
 from ..core.kmer_set_compact import KmerSetCompact
 from ..utils import flags as flag_util
 from ..utils.log import enable_debug_logs, init_default_logger
@@ -39,6 +40,7 @@ def main(argv=None) -> None:
         enable_debug_logs()
     flag_util.check_k(args.k)
     flag_util.apply_workers(args)
+    enable_compile_cache()
     cfg = get_config(args.k)
     if args.buckets != 1:
         # Loud, documented no-op (reference: src/spss-benchmark.cc:28

@@ -2,8 +2,8 @@
 
 The reference implements an Anderson-Woll wait-free union-find with CAS on
 rank||parent packed atomics (reference: lib/core/parallel_disjoint_set.h).
-There are no atomics on a TPU; the package's production cycle-detection
-uses min-label pointer doubling instead (kmerset_tpu.core.graph).  This
+The package's production cycle-detection uses array-parallel min-label
+pointer doubling instead (kmerset_tpu.core.graph).  This
 class provides the same union-find API for host-side orchestration
 (component bookkeeping over small graphs) with union-by-rank +
 path-halving, plus a batched `unite_edges` that replays an edge array.

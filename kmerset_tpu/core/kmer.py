@@ -7,7 +7,7 @@ significant 2-bit lane (reference: lib/core/kmer.h:12-46).
 Unlike the reference's per-base scalar loops (e.g. the reverse complement
 loop, reference: lib/core/kmer.h:103-129), everything here is closed-form
 bit arithmetic over whole arrays, so the same code runs vectorized under
-NumPy on the host and under jnp/XLA on TPU (only `~ & | << >>` and
+NumPy on the host and under jnp/XLA on the device (only `~ & | << >>` and
 arithmetic are used, which both array libraries share).
 
 k <= 31 fits in a signed int64 (62 bits).  All functions accept and return

@@ -155,22 +155,24 @@ def _make_weight_oracle(sketches: List[np.ndarray], n_inputs: int, k: int):
     force = os.environ.get("KMERSET_TPU_FORCE_BACKEND", "")
     if force == "mesh" or (force != "host" and driver.should_use_mesh(work)):
         try:
-            backend.enable_compile_cache()
             return _MeshWeightOracle(sketches, k)
-        except Exception as e:  # noqa: BLE001 - fall back
+        except Exception as e:  # noqa: BLE001 - fall back on the CPU backend
             # Visible, especially under an explicit force: a silently
             # degraded oracle looks like a mesh perf regression.
+            backend._note_fallback("mesh_weight_oracle", e)
             logger.warning("mesh weight oracle unavailable (%r); host path", e)
     # `work` is a merge-work proxy, not a device-resident window count:
     # should_use_device's MAX_DEVICE_WINDOWS ceiling models the counting
-    # sort's HBM footprint and must not veto the sketch oracle for the
-    # largest multi-set runs (the oracle's memory is the sketch table,
+    # program's device footprint and must not veto the sketch oracle for
+    # the largest multi-set runs (the oracle's memory is the sketch table,
     # bounded separately), so clamp the proxy below the ceiling.
-    if backend.should_use_device(min(work, backend.MAX_DEVICE_WINDOWS)):
+    if force != "host" and backend.should_use_device(
+        min(work, backend.MAX_DEVICE_WINDOWS)
+    ):
         try:
-            backend.enable_compile_cache()
             return _DeviceWeightOracle(sketches)
-        except Exception as e:  # noqa: BLE001 - fall back to host
+        except Exception as e:  # noqa: BLE001 - fall back on the CPU backend
+            backend._note_fallback("device_weight_oracle", e)
             logger.warning(
                 "device weight oracle unavailable (%r); host path", e
             )
@@ -227,8 +229,7 @@ class KmerSetSet:
         _children: AdjacencyList | None = None,
     ):
         """workers > 1 parallelizes the stopping-rule weight sweeps'
-        deferred SPSS builds (measured 80% of the compress wall at 8
-        related 3.9M-kmer sets — each build is an independent pure
+        deferred SPSS builds (each build is an independent pure
         function of its k-mer array, so the pool changes only when the
         work happens; output is byte-identical).  The reference runs
         its whole greedy loop on one thread (kmer_set_set.h:109-427)."""

@@ -705,7 +705,7 @@ def canonical_windows32(
     codes: np.ndarray, offsets: np.ndarray, k: int, canonical: bool
 ) -> Optional[np.ndarray]:
     """Dense int32 canonical window keys of every in-fragment window
-    (k <= 15; the host analogue of the device pack kernel).  Returns the
+    (k <= 15; the host analogue of the device window pack).  Returns the
     key array or None when the native library is unavailable."""
     if k > 15:
         return None

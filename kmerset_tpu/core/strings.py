@@ -1,7 +1,7 @@
 """PackedStrings: a ragged set of DNA strings as flat 2-bit codes + offsets.
 
 The reference passes std::vector<std::string> of ACGT text between SPSS
-phases (reference: lib/core/spss.h).  The TPU-native layout is structure-of-
+phases (reference: lib/core/spss.h).  The layout here is structure-of-
 arrays: one flat array of 2-bit base codes plus an offsets array, so
 whole-set operations (complement, k-mer window extraction, concatenation)
 are single vectorized passes instead of per-string loops.

@@ -1,10 +1,9 @@
 """Sort-join primitives: batched membership lookup in sorted sets.
 
-TPU-native replacement for per-query binary search.  XLA lowers
-`searchsorted` to log2(n) dependent gather passes, which run at ~6 M
-lookups/s on a v5e (measured) — random gathers do not vectorize.  A
-sort-join instead pays two unstable sorts plus two cummax scans, all of
-which run at memory bandwidth, and answers every query in one shot:
+A replacement for per-query binary search: XLA lowers `searchsorted` to
+log2(n) dependent gather passes.  A sort-join instead pays two unstable
+sorts plus two cummax scans, and answers every query in one shot (which
+of the two is faster on the GPU is not yet measured):
 
   1. concatenate [set, queries] with a tag key (0 = set row, 1 = query)
   2. sort by (key, tag) — every query lands directly after the equal set

@@ -4,8 +4,7 @@ Hot loop #2 of the reference (8 hash Contains() per k-mer,
 reference: lib/core/spss.h:238-273) as one batched sort-join: the 8
 extension candidates of every k-mer (4 next + 4 prev) are resolved in a
 single `lookup_join` over the sorted set — two bandwidth-bound sorts
-instead of 8 binary-search passes (XLA's searchsorted runs ~100x slower
-than a sort-join on TPU; see ops/join.py).
+instead of 8 binary-search passes (see ops/join.py).
 
 Arrays are padded to power-of-two size classes so jit caches stay small.
 `tables_traced` is the shared traced construction, also used by the

@@ -48,9 +48,7 @@ def _build():
 
         succ_r = jnp.where(term_r, -1, 2 * rnbr + rsame)
         succ_l = jnp.where(term_l, -1, 2 * lnbr + (~lsame).astype(jnp.int32))
-        # Orientation-major (2, n), interleaved on the host: a (n, 2)
-        # stack would be tile-padded 2 -> 128 in the minor dim on TPU —
-        # a 64x HBM blowup that OOMs at ~30M k-mers.
+        # Orientation-major (2, n), interleaved on the host.
         succ2 = jnp.stack([succ_r, succ_l], axis=0)
         both = term_l & term_r
         return succ2.astype(jnp.int32), term_l, term_r, both

@@ -1,16 +1,16 @@
 """Multi-device sharding: the distributed backend the reference never had.
 
 The reference is single-node shared-memory only (SURVEY.md §5.8); all of
-its parallelism is thread pools + mutexes.  The TPU-native scale-out story
-implemented here:
+its parallelism is thread pools + mutexes.  The scale-out implemented
+here:
 
 - 1-D device mesh over axis "kv" (k-mer space).  The k-mer key range is
   the shard axis — the same top-bits decomposition the reference uses for
   its lock-free buckets (reference: lib/core/kmer_set.h:20-31), so every
   device owns a contiguous range of the sorted k-mer space.
 - counting: each device window-packs + canonicalizes its shard of the
-  input (data parallel), then a radix exchange over ICI
-  (`lax.all_to_all`) re-shards candidates by key range so each device
+  input (data parallel), then a radix exchange between devices
+  (`lax.all_to_all`, NVLink on a multi-GPU host) re-shards candidates by key range so each device
   sort/unique-counts only its owned range.
 - reductions: sizes via psum, the order-independent XOR set hash via
   all_gather + local XOR (XOR is commutative; psum would not preserve it).
@@ -80,9 +80,9 @@ def sharded_count_fn(mesh: Mesh, k: int, canonical: bool, capacity: int):
     """
     n_dev = mesh.devices.size
     edges = _owner_edges(k, n_dev)
-    # TPU has no native int64: for k <= 15 the whole pipeline — window
-    # keys, the local sorts, and the all_to_all exchange — runs on int32
-    # (2k <= 30 bits), halving ICI bytes and avoiding emulated-s64 sorts.
+    # For k <= 15 the whole pipeline — window keys, the local sorts, and
+    # the all_to_all exchange — runs on int32 (2k <= 30 bits), halving
+    # the bytes exchanged between devices.
     narrow = k <= SINGLE_MAX_K
     sent = _S_SENT if narrow else SENTINEL
 
@@ -556,10 +556,9 @@ def sharded_pointer_double_fn(mesh: Mesh, rounds: int, with_labels: bool):
         ptr = jnp.where(done0, ids, succ_local.astype(jnp.int32))
         dist = jnp.where(done0, jnp.int32(0), jnp.int32(1))
         mlab = labels_local.astype(jnp.int32)
-        reached = done0
 
-        for _ in range(rounds):
-            frozen_pre = reached
+        def round_(_, carry):
+            ptr, dist, mlab, frozen_pre = carry
             # Lane 0: (done << 30) | (dist & DIST_MASK); lane 1: ptr;
             # with labels, lane 2: the running min-label — all three
             # answered by ONE owner routing per round (one query sort,
@@ -586,7 +585,14 @@ def sharded_pointer_double_fn(mesh: Mesh, rounds: int, with_labels: bool):
                 frozen_pre, dist, dist + jnp.where(t_done, 0, t_dist)
             )
             ptr = jnp.where(frozen_pre, ptr, jnp.where(t_done, ptr, t_ptr))
-            reached = reached | t_done
+            return ptr, dist, mlab, frozen_pre | t_done
+
+        # A loop, not `rounds` unrolled copies of the routing cycle: the
+        # unrolled program grows with the round count, and its GPU
+        # compile with it.
+        ptr, dist, mlab, reached = jax.lax.fori_loop(
+            0, rounds, round_, (ptr, dist, mlab, done0)
+        )
         return ptr, dist, reached, mlab
 
     sharded = jax.shard_map(

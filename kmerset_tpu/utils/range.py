@@ -2,7 +2,7 @@
 (reference: lib/core/range.h:17-82).
 
 The reference uses Range.Split(n_workers^2) to over-decompose every
-parallel loop for load balance.  The TPU build's parallelism is XLA's, so
+parallel loop for load balance.  The device build's parallelism is XLA's, so
 this exists for API parity and for host-side work partitioning (e.g.
 per-host file assignment in multi-host runs)."""
 

@@ -367,3 +367,50 @@ def test_multiple_compress_mesh_backend_matches_host(tmp_path, genome_reads):
     # children split may differ only if the oracle's weights differed,
     # which byte-identical sketches forbid — assert full equality.
     assert results["mesh"] == results["host"]
+
+
+def test_chip_smoke_refuses_cpu(tmp_path):
+    """chip_smoke.py run where JAX finds no GPU exits non-zero and prints
+    no result line."""
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "chip_smoke.py")],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    assert "no GPU" in proc.stderr
+
+
+@pytest.mark.parametrize("phase", ["build_k15", "build_k23_reads", "multiset"])
+def test_chip_smoke_phases_on_cpu(phase, tmp_path, monkeypatch):
+    """chip_smoke.py's phases at 1/256 of their size, with the device paths
+    forced onto the CPU backend: the device arm equals the host-forced arm
+    (byte-identical dumps; decompressed size/hash equal kmerset-stat's),
+    and the routes it records are the device ones."""
+    import argparse
+    import importlib.util
+    import os
+
+    from kmerset_tpu.ops import backend
+    from kmerset_tpu.utils.log import init_default_logger
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py")
+    )
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    monkeypatch.setenv("KMERSET_TPU_FORCE_BACKEND", "device")
+    ctx = argparse.Namespace(seed=1, scale=256, trace="", four_cards=False,
+                             resident=[], log=cs.LogCapture(), work=str(tmp_path))
+    init_default_logger().addHandler(ctx.log)
+    cs.install_spies(ctx.resident, monkeypatch.setattr)
+    before = backend.FALLBACK_COUNT
+    info = getattr(cs, f"phase_{phase}")(ctx)
+    assert backend.FALLBACK_COUNT == before
+    assert info["kmers"] > 0
+    assert cs.ROUTES.get("device_count") or cs.ROUTES.get("device_unique")

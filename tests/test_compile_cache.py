@@ -1,37 +1,58 @@
-"""Persistent compile cache keying (ops/backend.py).
+"""Persistent compile cache location (ops/backend.enable_compile_cache).
 
-XLA's persistent-cache hash does not cover the loading host's CPU
-features; a CPU AOT artifact from a bigger-ISA VM loads here with a
-"could lead to SIGILL" error (observed under hypervisor migration).
-The default cache directory is therefore keyed by a host-CPU
-fingerprint so cross-machine artifacts are never even looked up."""
+JAX_COMPILATION_CACHE_DIR, when set, is JAX's own setting and wins;
+otherwise the cache lives at one fixed path in the checkout,
+<repo>/.jax_cache, so a later process finds what an earlier one cached."""
 
 import os
+
+import pytest
 
 from kmerset_tpu.ops import backend
 
 
-def test_default_cache_dir_is_host_keyed(monkeypatch):
-    monkeypatch.delenv("KMERSET_TPU_COMPILE_CACHE", raising=False)
-    import jax
-
-    backend.enable_compile_cache()
-    fp = backend._host_cpu_fingerprint()
-    assert len(fp) == 10
-    assert jax.config.jax_compilation_cache_dir.endswith(f"kmerset_tpu_jax_{fp}")
-
-
-def test_fingerprint_stable():
-    assert backend._host_cpu_fingerprint() == backend._host_cpu_fingerprint()
-
-
-def test_env_override_wins(monkeypatch):
+@pytest.fixture
+def cache_config():
     import jax
 
     prev = jax.config.jax_compilation_cache_dir
-    monkeypatch.setenv("KMERSET_TPU_COMPILE_CACHE", "/tmp/kmerset_cache_test")
-    try:
-        backend.enable_compile_cache()
-        assert jax.config.jax_compilation_cache_dir == "/tmp/kmerset_cache_test"
-    finally:
-        jax.config.update("jax_compilation_cache_dir", prev)
+    yield jax.config
+    jax.config.update("jax_compilation_cache_dir", prev)
+
+
+def test_env_cache_dir_is_honoured(monkeypatch, cache_config):
+    cache_config.update("jax_compilation_cache_dir", "/nonexistent/sentinel")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/tmp/kmerset_env_cache")
+    backend.enable_compile_cache()
+    # Nothing is set in code: the value JAX already holds stays.
+    assert cache_config.jax_compilation_cache_dir == "/nonexistent/sentinel"
+
+
+def test_default_cache_dir_is_fixed_in_repo(monkeypatch, cache_config):
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    backend.enable_compile_cache()
+    first = cache_config.jax_compilation_cache_dir
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(backend.__file__)))
+    assert first == os.path.join(os.path.dirname(repo), ".jax_cache")
+    backend.enable_compile_cache()
+    assert cache_config.jax_compilation_cache_dir == first
+
+
+def test_cache_dir_ignores_cpu_flags(monkeypatch, cache_config):
+    """The directory is the same whatever the host CPU reports."""
+    import builtins
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    backend.enable_compile_cache()
+    first = cache_config.jax_compilation_cache_dir
+    real_open = builtins.open
+
+    def no_cpuinfo(path, *a, **kw):
+        if str(path) == "/proc/cpuinfo":
+            raise AssertionError("cache location read the CPU flags")
+        return real_open(path, *a, **kw)
+
+    monkeypatch.setattr(builtins, "open", no_cpuinfo)
+    backend.enable_compile_cache()
+    assert cache_config.jax_compilation_cache_dir == first
+    assert not hasattr(backend, "_host_cpu_fingerprint")

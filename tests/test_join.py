@@ -75,24 +75,6 @@ def test_device_side_tables_match_host(k, canonical):
         np.testing.assert_array_equal(lsame[ml], hl[2][ml])
 
 
-@pytest.mark.parametrize("k", [7, 15])
-def test_pallas_pack_interpret_matches_host(k):
-    """The Mosaic pack kernel, run under the Pallas interpreter, must agree
-    with the host codec on every valid window."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from kmerset_tpu.core import kmer as kc
-    from kmerset_tpu.ops.pallas_pack import canonical_windows_pallas
-
-    rng = np.random.default_rng(k)
-    codes = rng.integers(0, 4, 5000).astype(np.int32)
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(canonical_windows_pallas(codes, k))
-    w = kc.kmers_from_codes(codes.astype(np.int64), k)
-    exp = kc.canonical(w, k)
-    np.testing.assert_array_equal(got[: exp.shape[0]], exp)
-
-
 @pytest.mark.parametrize("k", [9, 15, 19, 23])
 def test_device_unitig_succ_matches_host(k, monkeypatch):
     """The fused device successor front-end must reproduce the host
@@ -136,83 +118,52 @@ def test_device_unitig_succ_matches_host(k, monkeypatch):
     np.testing.assert_array_equal(rt_d.kmers, A)
 
 
+@pytest.mark.parametrize("layout", ["single", "pair"])
 @pytest.mark.parametrize("frac", [0.0, 0.05, 0.5, 1.0])
-def test_pallas_compact_interpret_matches_host(frac):
-    """The Pallas stream compactor (interpret mode) equals boolean-mask
-    compaction (kernel design: ops/pallas_compact.py)."""
+def test_compact_runs_matches_numpy_selection(frac, layout):
+    """The count path's compaction (ops/count.py _compact_runs: the
+    selection flag fused into the leading sort key) equals boolean-mask
+    selection of the sorted keys, in the single int32 and the (hi, lo)
+    pair layouts, carrying an extra lane along; the tail is SENTINEL/0."""
     import jax.numpy as jnp
 
-    from kmerset_tpu.ops.pallas_compact import BLOCK, compact_select_i32
+    from kmerset_tpu.ops.count import _HI_SENT, _S_SENT, SENTINEL, _compact_runs
 
-    rng = np.random.default_rng(int(frac * 100) + 3)
-    n = 2 * BLOCK
-    keys = np.sort(rng.integers(0, 1 << 30, n).astype(np.int32))
-    keys = np.unique(keys)
-    keys = np.pad(keys, (0, n - keys.size), constant_values=(1 << 31) - 1)
-    keep = rng.random(n) <= frac if frac else np.zeros(n, bool)
-    keep &= keys < (1 << 30)
-    # kept values must be strictly increasing (run heads are)
-    keep[1:] &= keys[1:] != keys[:-1]
-    got, n_sel = compact_select_i32(jnp.array(keys), jnp.array(keep), interpret=True)
-    ns = int(n_sel)
-    expect = keys[keep]
-    assert ns == expect.size
-    assert np.array_equal(np.asarray(got[:ns]), expect)
+    rng = np.random.default_rng(int(frac * 100) + (3 if layout == "single" else 7))
+    n = 5000
+    if layout == "single":
+        keys64 = np.unique(rng.integers(0, 1 << 30, n - 100))
+        m = keys64.size
+        lanes = [np.full(n, _S_SENT, np.int32)]
+        lanes[0][:m] = keys64
 
+        def to64(ks):
+            return ks[0].astype(jnp.int64)
+    else:
+        klo = 11  # k = 23: 24-bit hi, 22-bit lo
+        keys64 = np.unique(rng.integers(0, 1 << 46, n - 100))
+        m = keys64.size
+        lanes = [np.full(n, _HI_SENT, np.int32), np.zeros(n, np.int32)]
+        lanes[0][:m] = keys64 >> (2 * klo)
+        lanes[1][:m] = keys64 & ((1 << (2 * klo)) - 1)
 
-def test_pallas_compact_pair_interpret_counts():
-    """Pair-lane compaction recovers run lengths as position diffs
-    (count_kmers kernel path, ops/count.py)."""
-    import jax.numpy as jnp
+        def to64(ks):
+            return (ks[0].astype(jnp.int64) << (2 * klo)) | ks[1].astype(jnp.int64)
 
-    from kmerset_tpu.ops.pallas_compact import BLOCK, compact_select_pair_i32
-
-    rng = np.random.default_rng(11)
-    n = 2 * BLOCK
-    # sorted keys with duplicates + sentinel tail
-    vals = np.sort(rng.integers(0, n // 3, n - 77).astype(np.int32))
-    keys = np.pad(vals, (0, 77), constant_values=(1 << 31) - 1)
-    live = keys < (1 << 31) - 1
-    boundary = live & np.concatenate([[True], keys[1:] != keys[:-1]])
-    pos = np.arange(n, dtype=np.int32)
-    ck, cp, n_sel = compact_select_pair_i32(
-        jnp.array(keys), jnp.array(pos), jnp.array(boundary), interpret=True
+    live = np.arange(n) < m
+    select = live & (rng.random(n) < frac)
+    extra = rng.integers(0, 1000, n).astype(np.int32)
+    uniq, (cx,), n_sel = _compact_runs(
+        to64, tuple(jnp.asarray(x) for x in lanes), jnp.asarray(select),
+        (jnp.asarray(extra),),
     )
     ns = int(n_sel)
-    u, idx, cts = np.unique(vals, return_index=True, return_counts=True)
-    assert ns == u.size
-    assert np.array_equal(np.asarray(ck[:ns]), u)
-    assert np.array_equal(np.asarray(cp[:ns]), idx.astype(np.int32))
-    got_counts = np.diff(np.append(np.asarray(cp[:ns]), vals.size))
-    assert np.array_equal(got_counts, cts)
-
-
-def test_pallas_compact_two_key_interpret():
-    """Pair key layout (k in 16..23): hi/lo int32 lanes with num_keys=2
-    partition (count paths for k=19/23, ops/count.py)."""
-    import jax.numpy as jnp
-
-    from kmerset_tpu.ops.pallas_compact import BLOCK, compact_select_multi
-
-    rng = np.random.default_rng(5)
-    n = 2 * BLOCK
-    pairs = np.unique(
-        rng.integers(0, 1 << 24, (n, 2)).astype(np.int32), axis=0
-    )
-    pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
-    m = pairs.shape[0]
-    hi = np.full(n, 1 << 30, np.int32)
-    lo = np.zeros(n, np.int32)
-    hi[:m], lo[:m] = pairs[:, 0], pairs[:, 1]
-    keep = rng.random(n) < 0.4
-    keep &= hi < (1 << 30)
-    lanes, n_sel = compact_select_multi(
-        [jnp.array(hi), jnp.array(lo)], jnp.array(keep), num_keys=2, interpret=True
-    )
-    ns = int(n_sel)
-    assert ns == int(keep.sum())
-    assert np.array_equal(np.asarray(lanes[0][:ns]), hi[keep])
-    assert np.array_equal(np.asarray(lanes[1][:ns]), lo[keep])
+    assert ns == int(select.sum())
+    uniq, cx = np.asarray(uniq), np.asarray(cx)
+    np.testing.assert_array_equal(uniq[:ns], keys64[select[:m]])
+    assert (uniq[ns:] == SENTINEL).all()
+    np.testing.assert_array_equal(cx[:ns], extra[select])
+    assert (cx[ns:] == 0).all()
 
 
 def test_lookup_join32_matches_int64():
@@ -237,22 +188,3 @@ def test_lookup_join32_matches_int64():
     np.testing.assert_array_equal(
         np.asarray(i64)[np.asarray(f64)], np.asarray(i32)[np.asarray(f32)]
     )
-
-
-def test_compact_block_env_malformed_and_nondivisible(monkeypatch, caplog):
-    """KMERSET_TPU_COMPACT_BLOCK must warn-and-default on malformed or
-    non-power-of-two values — a raise here would be swallowed into a
-    silent host fallback by every consumer, and a non-power-of-two
-    block never divides any good_sort_size output (review finding)."""
-    from kmerset_tpu.ops.pallas_compact import _block_size
-
-    for bad in ("8k", "5120", "1024", "12288"):
-        monkeypatch.setenv("KMERSET_TPU_COMPACT_BLOCK", bad)
-        with caplog.at_level("WARNING", logger="kmerset"):
-            caplog.clear()
-            assert _block_size() == 8192
-        assert any("KMERSET_TPU_COMPACT_BLOCK" in r.message for r in caplog.records)
-    monkeypatch.setenv("KMERSET_TPU_COMPACT_BLOCK", "16384")
-    assert _block_size() == 16384
-    monkeypatch.delenv("KMERSET_TPU_COMPACT_BLOCK")
-    assert _block_size() == 8192

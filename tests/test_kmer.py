@@ -94,42 +94,54 @@ def test_sorted_unique_helpers():
         np.testing.assert_array_equal(c, ec)
 
 
-def test_pallas_pack_kernels_interpret_parity():
-    """The Pallas pack kernels (single and pair layouts) match the XLA
-    roll formulation, via interpret mode so CI covers the kernel logic
-    without a TPU (ops/pallas_pack.py)."""
-    import numpy as np
+@pytest.mark.parametrize("k", [7, 9, 15, 19, 23])
+def test_plain_pack_matches_host_canonical(k):
+    """The device window pack (ops/count.py: _single_windows for k <= 15,
+    the (hi, lo) _pair_windows above) equals the host codec's canonical
+    k-mer of every window, on an input longer than 2^17 bases so the
+    log-doubling rolls wrap across a large array."""
     import jax
 
     from kmerset_tpu.ops import count as count_mod
-    from kmerset_tpu.ops.pallas_pack import (
-        canonical_windows_pair_pallas,
-        canonical_windows_pallas,
-    )
 
-    rng = np.random.default_rng(3)
-    codes = rng.integers(0, 4, size=3000).astype(np.int32)
+    rng = np.random.default_rng(40 + k)
+    codes = rng.integers(0, 4, size=(1 << 17) + 333).astype(np.int32)
+    n = codes.shape[0] - k + 1
+    exp = kc.canonical(kc.kmers_from_codes(codes.astype(np.int64), k), k)
+    if k <= count_mod.SINGLE_MAX_K:
+        got = np.asarray(
+            jax.jit(count_mod._single_windows, static_argnums=(1, 2))(codes, k, True)
+        ).astype(np.int64)
+    else:
+        hi, lo = jax.jit(count_mod._pair_windows, static_argnums=(1, 2))(codes, k, True)
+        klo = k - (k + 1) // 2
+        got = (np.asarray(hi).astype(np.int64) << (2 * klo)) | np.asarray(lo)
+    np.testing.assert_array_equal(got[:n], exp[:n])
 
-    for k in (9, 15):
-        got = np.asarray(canonical_windows_pallas(codes, k, interpret=True))
-        fwd = count_mod._pack_span(codes, range(0, k), np.int32)
-        rc = count_mod._pack_span_rc(codes, range(k - 1, -1, -1), np.int32)
-        exp = np.minimum(np.asarray(fwd), np.asarray(rc))
-        n = codes.shape[0] - k + 1
-        np.testing.assert_array_equal(got[:n], exp[:n])
 
-    for k in (19, 23):
-        hi, lo = canonical_windows_pair_pallas(codes, k, interpret=True)
-        kh = (k + 1) // 2
-        ehi = count_mod._pack_span(codes, range(0, kh), np.int32)
-        elo = count_mod._pack_span(codes, range(kh, k), np.int32)
-        rhi = count_mod._pack_span_rc(codes, range(k - 1, k - 1 - kh, -1), np.int32)
-        rlo = count_mod._pack_span_rc(codes, range(k - 1 - kh, -1, -1), np.int32)
-        import jax.numpy as jnp
+@pytest.mark.parametrize("canonical", [True, False])
+@pytest.mark.parametrize("k", [9, 15, 19, 23])
+def test_packed_window_keys_match_unpacked(k, canonical):
+    """The count programs' window keys of 2-bit packed codes (_unpack2,
+    then _window_keys, as count_kmers_frag runs them) equal the keys of
+    the unpacked codes, with a length that is not a multiple of four."""
+    import jax
+    import jax.numpy as jnp
 
-        less = np.asarray((rhi < ehi) | ((rhi == ehi) & (rlo < elo)))
-        exp_hi = np.where(less, np.asarray(rhi), np.asarray(ehi))
-        exp_lo = np.where(less, np.asarray(rlo), np.asarray(elo))
-        n = codes.shape[0] - k + 1
-        np.testing.assert_array_equal(np.asarray(hi)[:n], exp_hi[:n])
-        np.testing.assert_array_equal(np.asarray(lo)[:n], exp_lo[:n])
+    from kmerset_tpu.ops import count as count_mod
+
+    rng = np.random.default_rng(70 + k)
+    codes = rng.integers(0, 4, size=2077 + k - 1).astype(np.uint8)
+    packed = np.zeros((codes.size + 3) // 4, np.uint8)
+    for s in range(4):
+        part = codes[s::4]
+        packed[: part.size] |= part << (2 * s)
+    got = jax.jit(
+        lambda p: count_mod._window_keys(count_mod._unpack2(p, codes.size), k, canonical)
+    )(jnp.asarray(packed))
+    exp = count_mod._window_keys(jnp.asarray(codes.astype(np.int32)), k, canonical)
+    if k <= count_mod.SINGLE_MAX_K:
+        got, exp = (got,), (exp,)
+    n = codes.size - (k - 1)
+    for g, e in zip(got, exp):
+        np.testing.assert_array_equal(np.asarray(g)[:n], np.asarray(e)[:n])
